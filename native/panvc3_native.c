@@ -1,4 +1,4 @@
-/* panvc3_native — C host-side hot loops for the TPU-native engine.
+/* panvc3_native — C host-side hot loops for the device engine.
  *
  * The reference implements its entire runtime in C++ (SURVEY §2); here the
  * device math lives in JAX/XLA kernels and this extension supplies the

@@ -1,9 +1,10 @@
-"""panvc3_tpu — a TPU-native pan-genome alignment-projection engine.
+"""panvc3_tpu — a pan-genome alignment-projection engine in JAX, run on an
+NVIDIA GPU.
 
 A ground-up reimplementation of the capabilities of tsnorri/panvc3
 (reference-bias-free variant-calling preprocessing: project alignments made
 against founder sequences back to standard-reference coordinates), designed
-TPU-first:
+for an accelerator:
 
 - the per-record, pointer-chasing streaming design of the reference is
   replaced by host-side batching into fixed-shape arrays and data-parallel
@@ -12,7 +13,7 @@ TPU-first:
   msa_index.hh:239-258) becomes packed-bit tensors with block-rank tables and
   vectorised popcount gathers;
 - the realignment DP (reference: seqan3 align_pairwise, align.hh:59-112)
-  becomes a batched wavefront kernel;
+  becomes one batched fill + traceback program (XLA row scans);
 - multi-chip scaling uses jax.sharding Mesh + shard_map over the record batch
   dimension.
 

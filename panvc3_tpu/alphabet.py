@@ -30,9 +30,9 @@ def normalise_dna5(seq: str | bytes) -> bytes:
 
 def dna5_normalise_device(x):
     """Traced-array DNA5_NORMALISE: identical to the table for every byte
-    value (uppercase, U->T, other->N) but pure elementwise vector ops —
-    a 256-entry table gather serializes per element on TPU
-    (tests/test_device_ops.py asserts equality over all 256 inputs)."""
+    value (uppercase, U->T, other->N) but pure elementwise vector ops
+    instead of a 256-entry table gather (tests/test_device_ops.py asserts
+    equality over all 256 inputs)."""
     import jax.numpy as jnp
 
     up = x & jnp.uint8(0xDF)

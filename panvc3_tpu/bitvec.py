@@ -1,6 +1,6 @@
 """Packed gap bitvectors with O(1) rank0 and fast select0.
 
-TPU-native replacement for the reference's ``sdsl::rrr_vector<15>`` plus
+Replacement for the reference's ``sdsl::rrr_vector<15>`` plus
 rank0/select0 supports (/root/reference/include/panvc3/msa_index.hh:43-54,
 239-258).  Instead of RRR compression we store the plain packed bits plus
 a two-level rank directory (sdsl ``rank_support_v5``-class overhead,
@@ -20,8 +20,8 @@ select0(k)   = binary search superblocks, fixed-trip search of the 32
                in-superblock blocks, popcount scan of the 8 block words,
                then an in-word popcount binary search.
 
-Everything is branch-free gather+popcount pipelines, which is exactly
-what the TPU's VPU wants; the hot projection paths never even touch
+Everything is branch-free gather+popcount pipelines, which vectorise on
+host and device alike; the hot projection paths never even touch
 these structures — they run on the O(#MSA-differences) event tables of
 :mod:`panvc3_tpu.ops.event_geometry`, and the batched device kernels in
 :mod:`panvc3_tpu.ops.rank_select` build their own HBM tables from

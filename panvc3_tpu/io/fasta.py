@@ -1,7 +1,7 @@
 """FASTA reading/writing, including random access into bgzip-compressed
 FASTA via ``.fai`` + ``.gzi`` indexes.
 
-TPU-native counterpart of panvc3::compressed_fasta_reader
+Counterpart of panvc3::compressed_fasta_reader
 (/root/reference/libpanvc3/compressed_fasta_reader.cc:94-247): per-sequence
 random access decompresses from the nearest indexed block and strips
 newlines using the faidx line-length fields.

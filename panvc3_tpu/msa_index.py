@@ -1,6 +1,6 @@
 """The MSA coordinate index.
 
-TPU-native equivalent of panvc3::msa_index
+Equivalent of panvc3::msa_index
 (/root/reference/include/panvc3/msa_index.hh:41-258): per chromosome, per
 sequence, a gap bitvector over the aligned (MSA column) space with
 rank0/select0 support, giving

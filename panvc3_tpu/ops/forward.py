@@ -20,7 +20,7 @@ import jax
 import jax.numpy as jnp
 
 from .rank_select import DeviceGapIndex
-from .realign_batch import _substitution_scores, _traceback_batch, fill_dispatch
+from .realign_batch import dp_align
 from .rewrite_batch import rewrite_math
 
 
@@ -52,10 +52,8 @@ def projection_step(
         query, R,
     )
 
-    sub = _substitution_scores(run_ref, run_query, None, None, False)
-    trace = fill_dispatch(sub, run_query_len, run_ref_len, go, ge, run_r, run_q)
-    realign_ops, realign_counts = _traceback_batch(
-        trace, run_ref, run_query, run_query_len, run_ref_len, run_r, run_q
+    realign_ops, realign_counts = dp_align(
+        run_ref, run_query, run_query_len, run_ref_len, go, ge, run_r, run_q
     )
 
     # global statistics ride a cross-device reduction when sharded

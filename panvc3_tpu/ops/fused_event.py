@@ -52,7 +52,7 @@ import numpy as np
 from ..alphabet import dna5_normalise_device
 from ..cigar import D, EQ, I
 from .fused import _CONS_QUERY, _CONS_REF, _prefix_max_i
-from .realign_batch import _traceback_batch, _use_fused_pallas, fill_dispatch
+from .realign_batch import dp_align
 from .rewrite_batch import CODE_NONE, _IS_MTYPE_OP, _IS_REF_OP
 
 
@@ -386,21 +386,10 @@ def _fused_event_body(
     if _stage == 7:  # slice gathers
         return _cut(ref_slice, q_slice, query_len, ref_len)
 
-    # same dispatch as the split path (fused Pallas fill+traceback on real
-    # TPUs, XLA scans elsewhere — bit-identical, tests/test_device_ops.py)
-    if _use_fused_pallas():
-        from .realign_pallas_fused import realign_fused_pallas
-
-        realign_ops, realign_counts = realign_fused_pallas(
-            None, ref_slice, q_slice, query_len, ref_len, go, ge, run_r, run_q
-        )
-    else:
-        eq_m = q_slice[:, :, None] == ref_slice[:, None, :]
-        sub = jnp.where(eq_m, 0.0, -1.0).astype(jnp.float32)
-        trace = fill_dispatch(sub, query_len, ref_len, go, ge, run_r, run_q)
-        realign_ops, realign_counts = _traceback_batch(
-            trace, ref_slice, q_slice, query_len, ref_len, run_r, run_q
-        )
+    # same dispatch as the split path (realign_batch.dp_align)
+    realign_ops, realign_counts = dp_align(
+        ref_slice, q_slice, query_len, ref_len, go, ge, run_r, run_q
+    )
 
     flags = jnp.stack(
         [pool_overflow + len_overflow + cnt_overflow, ev_overflow, total_runs]

@@ -1,6 +1,6 @@
 """Vectorised rank0/select0 over packed gap bitvectors on device.
 
-The TPU-native replacement for sdsl rank/select supports
+The device replacement for sdsl rank/select supports
 (/root/reference/include/panvc3/msa_index.hh:43-54): the host-side
 GapBitVector arrays (uint32 words + per-word cumulative zero counts) are
 concatenated across sequences into flat HBM-resident buffers; queries are
@@ -23,8 +23,7 @@ from ..bitvec import GapBitVector
 
 
 # Fallback acceleration-table budget when the backend exposes no memory
-# statistics (e.g. the CPU test mesh): 2 GB, matching one v5e chip's HBM
-# headroom after typical batch working sets.
+# statistics (the CPU backend): 2 GB.  On a GPU, memory_stats() sets it.
 DEFAULT_TABLE_BUDGET_BYTES = 2 * 1024 * 1024 * 1024
 
 # Fraction of free device memory the acceleration tables may claim.  The
@@ -256,8 +255,8 @@ class DeviceGapIndex:
 
         With the explicit select table this is a contiguous R-length slice
         of ``zsel`` per query — lowered as a slice-gather (DMA of rows)
-        instead of B*R independent element gathers, which profiles ~5x
-        faster on TPU.  ``seq``/``k0`` are (B,); returns (B, R).  Entries
+        instead of B*R independent element gathers.  ``seq``/``k0`` are
+        (B,); returns (B, R).  Entries
         beyond the sequence's zero count read the tail pad / next sequence
         and must be masked by the caller (the gap kernels mask by
         n_ref_units).

@@ -1,6 +1,6 @@
 """Multi-chip execution: data-parallel record batches over a device mesh.
 
-The reference has no distributed backend (SURVEY §2.5); the TPU-native
+The reference has no distributed backend (SURVEY §2.5); the multi-device
 scaling design is:
 
 - the record batch dimension is sharded over the ``dp`` mesh axis;

@@ -46,10 +46,15 @@ def rewrite_cigar(
 
     Returns ``(dst_pos, rewritten_cigar)``.
     """
-    if isinstance(query_seq, bytes):
-        query_seq = query_seq.decode("latin1")
-    if isinstance(dst_seq, bytes):
-        dst_seq = dst_seq.decode("latin1")
+    # compare characters in dst_seq's own type (str chars or byte values):
+    # convert the short query, never the destination — a whole chromosome,
+    # which decoding would cost O(genome) per record
+    if isinstance(query_seq, str) != isinstance(dst_seq, str):
+        query_seq = (
+            query_seq.encode("latin1")
+            if isinstance(query_seq, str)
+            else bytes(query_seq).decode("latin1")
+        )
 
     dst = destination if destination is not None else CigarBuffer()
     dst.clear()

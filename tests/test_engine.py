@@ -465,36 +465,6 @@ def test_device_gap_tables_lazy(msa_files, founder_seqs):
     assert built == [], "gap-index tables were built on the event path"
 
 
-def test_fused_kernel_pallas_dp_branch_matches(msa_files, founder_seqs, monkeypatch):
-    """The fused projection kernel's Pallas DP branch (the real-TPU default,
-    ops/fused.py realign_fused_pallas with sub=None) must be byte-identical
-    to its XLA-scan branch — interpret mode on the CPU mesh (ADVICE r2)."""
-    import jax
-
-    index_path, _, _ = msa_files
-    sam = _synthesise_indel_sam(founder_seqs, n_reads=60, seed=11)
-
-    outs = {}
-    for flag in ("0", "1"):
-        monkeypatch.setenv("PANVC3_PALLAS_FUSED", flag)
-        jax.clear_caches()
-        cfg = ProjectConfig(
-            msa_index_path=str(index_path),
-            reference_path=str(WORKFLOW / "genome/genome.fa.gz"),
-            reference_msa_id="REF",
-            ref_id_separator="/",
-            engine="device",
-            device_batch_size=64,
-            fused_kernel=True,
-        )
-        out = io.BytesIO()
-        stats = run_project_alignments(io.BytesIO(sam), out, cfg)
-        assert stats.realigned_range_count > 0  # DP branch exercised
-        outs[flag] = out.getvalue()
-    jax.clear_caches()
-    assert outs["0"] == outs["1"]
-
-
 def test_fused_event_matches_gap_variant(msa_files, founder_seqs, monkeypatch):
     """The fused v4 kernel (event-geometry rewrite + segment-space run
     detection, ops/fused_event.py) must be byte-identical to the v3

@@ -10,9 +10,7 @@ must reproduce the table byte-for-byte:
 
 - the host Python oracle (align.align_global),
 - the host C DP (PANVC3_HOST_DP=1 realign_batch),
-- the XLA scans (PANVC3_HOST_DP=0, PANVC3_PALLAS_FUSED=0),
-- the fused Pallas kernel (PANVC3_HOST_DP=0, PANVC3_PALLAS_FUSED=1,
-  interpret mode on CPU).
+- the XLA scans (PANVC3_HOST_DP=0).
 
 A coordinated recurrence change that keeps the engines mutually
 consistent but diverges from the reference's order fails here, not in a
@@ -79,13 +77,10 @@ def test_host_oracle_matches_fixture_table():
 
 
 @pytest.mark.parametrize(
-    "host_dp,pallas",
-    [("1", "0"), ("0", "0"), ("0", "1")],
-    ids=["host-c-dp", "xla-scans", "pallas-fused"],
+    "host_dp", ["1", "0"], ids=["host-c-dp", "xla-scans"],
 )
-def test_engines_match_fixture_table(host_dp, pallas, monkeypatch):
+def test_engines_match_fixture_table(host_dp, monkeypatch):
     monkeypatch.setenv("PANVC3_HOST_DP", host_dp)
-    monkeypatch.setenv("PANVC3_PALLAS_FUSED", pallas)
     for (go, ge, quality), rows in _groups().items():
         refs = [r[3].encode() for r in rows]
         queries = [r[4].encode() for r in rows]
@@ -98,6 +93,6 @@ def test_engines_match_fixture_table(host_dp, pallas, monkeypatch):
         for row, g in zip(rows, got):
             assert format_cigar(g) == row[7], (
                 f"{row[0]} {row[3]} {row[4]} go={go} ge={ge} "
-                f"host_dp={host_dp} pallas={pallas}: "
+                f"host_dp={host_dp}: "
                 f"expected {row[7]} got {format_cigar(g)}"
             )

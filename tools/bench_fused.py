@@ -15,13 +15,14 @@ sys.path.insert(0, ".")
 
 import numpy as np  # noqa: E402
 
-from bench import build_index_entries, synthesise_records, _enable_compilation_cache  # noqa: E402
+from bench import build_index_entries, synthesise_records  # noqa: E402
+from panvc3_tpu.utils import enable_compile_cache  # noqa: E402
 
 
 def main() -> None:
     batch_size = int(sys.argv[1]) if len(sys.argv) > 1 else 8192
     iters = int(sys.argv[2]) if len(sys.argv) > 2 else 20
-    _enable_compilation_cache()
+    enable_compile_cache()
 
     import jax
     import jax.numpy as jnp

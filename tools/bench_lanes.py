@@ -12,10 +12,11 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 import bench  # noqa: E402
 
-bench._enable_compilation_cache()
+from panvc3_tpu.utils import enable_compile_cache  # noqa: E402
 
 
 def main():
+    enable_compile_cache()
     (
         cfg, sam, n, records, src_entries, dst_entries, ref_id_mapping,
         ref_seq, founders, batch_size, pipeline_depth,

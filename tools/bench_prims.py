@@ -12,12 +12,12 @@ import time
 
 sys.path.insert(0, ".")
 
-from bench import _enable_compilation_cache  # noqa: E402
+from panvc3_tpu.utils import enable_compile_cache  # noqa: E402
 
 
 def main() -> None:
     iters = int(sys.argv[1]) if len(sys.argv) > 1 else 50
-    _enable_compilation_cache()
+    enable_compile_cache()
 
     import jax
     import jax.numpy as jnp

@@ -6,7 +6,7 @@ extend; calibrated against the reference's golden fixtures, see
 /root/reference/tests/alignment_projector.cc:157-247 and
 include/panvc3/align.hh:59-112) is the hardest bit-equality risk in the
 whole projection path: three engines (host Python oracle, host C DP, XLA
-scans / fused Pallas kernel) must agree byte-for-byte, and a coordinated
+scans) must agree byte-for-byte, and a coordinated
 recurrence change could silently move ALL of them off the reference's
 order.  This script locks the CURRENT calibrated answers into
 tests/data/tiebreak_fixtures.tsv over inputs chosen for maximal tie
